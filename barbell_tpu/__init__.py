@@ -1,8 +1,9 @@
-"""barbell_tpu — TPU-native pattern-aware Nanopore barcode demultiplexing.
+"""barbell_tpu — accelerator-native pattern-aware Nanopore barcode
+demultiplexing.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 `rickbeeloo/barbell` CLI (annotate → inspect → filter → trim), built for
-TPU hardware: the edit-distance search of barcode+flank constructs runs as
+a GPU: the edit-distance search of barcode+flank constructs runs as
 batched device kernels over dense padded read tensors; the surrounding
 pipeline (pattern grammar, kit database, trimming, IO) runs on the host.
 

@@ -2,7 +2,7 @@
 
 Flag names and defaults mirror the reference CLI (`bin/main.rs:61-264`)
 so reference users can switch with their existing invocations, plus
-TPU-specific knobs (``--backend``, ``--batch-size``).
+device knobs (``--backend``, ``--batch-size``).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from .stages.kit import KitRunConfig, demux_using_kit
 from .stages.trim import LabelConfig, trim_matches
 
 BANNER = r"""
-    barbell-tpu — TPU-native pattern-aware Nanopore demultiplexing
+    barbell-tpu — pattern-aware Nanopore demultiplexing on the GPU
     [===]------------------------------------------[===]
 """
 
@@ -33,7 +33,9 @@ def _add_backend_args(p: argparse.ArgumentParser) -> None:
         "--backend",
         choices=["auto", "jax", "oracle"],
         default="auto",
-        help="Demux engine: batched device pipeline (jax) or scalar NumPy oracle",
+        help="Demux engine: batched device pipeline (jax; 'auto' is the "
+        "same and fails if the device engine cannot start) or scalar NumPy "
+        "oracle",
     )
     p.add_argument(
         "--batch-size", type=int, default=2048, help="Reads per device batch"
@@ -43,7 +45,7 @@ def _add_backend_args(p: argparse.ArgumentParser) -> None:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="barbell-tpu",
-        description="TPU-native pattern-aware Nanopore barcode demultiplexing",
+        description="Pattern-aware Nanopore barcode demultiplexing on the GPU",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 

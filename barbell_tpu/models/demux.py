@@ -1,7 +1,7 @@
 """Per-read demultiplexing: flank search -> barcode rescoring -> select.
 
 This is the *reference* (NumPy oracle) implementation of the demux
-algorithm — exact but scalar.  The batched TPU pipeline in
+algorithm — exact but scalar.  The batched device pipeline in
 :mod:`barbell_tpu.models.pipeline` reproduces these results on padded
 read tensors and is tested against this module.
 

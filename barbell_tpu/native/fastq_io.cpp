@@ -191,7 +191,7 @@ extern "C" {
 // Encode IUPAC bytes through `lut` (256 entries, 4-bit masks) and
 // nibble-pack straight into padded device rows: out[i] is L/2 bytes,
 // low nibble = even column.  Releases the GIL via ctypes; this is the
-// host hot path feeding the TPU demux engine (replaces a per-read
+// host hot path feeding the device demux engine (replaces a per-read
 // numpy LUT gather + a whole-matrix numpy pack).
 void bbio_encode_pack_rows(const unsigned char* seqs, const long* offs,
                            const int* lens, int n, int L,

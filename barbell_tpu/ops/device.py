@@ -1,4 +1,4 @@
-"""Batched JAX kernels for the demux pipeline (TPU-first, CPU-testable).
+"""Batched JAX kernels for the demux pipeline (any XLA backend).
 
 Four device stages, all in the scaled-integer cost domain of
 :mod:`barbell_tpu.ops.oracle` (exact agreement with the oracle is a
@@ -19,8 +19,10 @@ test invariant):
    its sub-cost, and the Lodhi gap-weighted score — all as scan
    carries, no materialized paths.
 
-Everything is pure jnp (XLA fuses the elementwise work); the flank scan
-has a Pallas fast path in :mod:`barbell_tpu.ops.pallas_myers`.
+Everything is pure jnp (XLA fuses the elementwise work); on the GPU the
+flank scan interior and the barcode rank have Triton kernels
+(:mod:`barbell_tpu.ops.triton_myers`, :mod:`barbell_tpu.ops.triton_rank`)
+tested against these twins.
 """
 
 from __future__ import annotations
@@ -521,8 +523,7 @@ def window_dp_summary(
         # nearest non-left cell <= j, then takes d = j - g left edges,
         # each with predecessor (i, j'), j' = g..j-1, a = lambda, mf = 0.
         # The base state is forward-filled across runs with a segmented
-        # last-base associative scan — take_along_axis gathers along the
-        # minor axis are pathologically slow on TPU (~140ms per call).
+        # last-base associative scan (no per-element gathers).
         fill = dict(base)
         fill["_g"] = jnp.broadcast_to(
             jpos[None, None, :], (H, P, W + 1)

@@ -1,6 +1,6 @@
 """NumPy reference engine for approximate flank/barcode search.
 
-This module *defines* the framework's alignment semantics.  The TPU
+This module *defines* the framework's alignment semantics.  The device
 kernels in :mod:`barbell_tpu.ops.device` are validated cell-for-cell
 against it, and it doubles as the CPU fallback path.
 
@@ -16,7 +16,7 @@ consistently across oracle and kernels):
   ``COST_SCALE`` (2560).  A unit edit costs 2560; the fractional
   overhang cost ``alpha`` quantizes to ``round(alpha * 2560)`` (exact
   for the default 0.4 -> 1024).  This makes every valley/traceback
-  comparison exact on both CPU and TPU — no float-tie hazards.
+  comparison exact on both CPU and GPU — no float-tie hazards.
 * **Overhang** (flank search only): pattern bases that extend past the
   *text* ends cost ``alpha`` each instead of 1 (CLI ``--alpha``).
   Implemented as: column-0 vertical steps cost alpha, column-n vertical

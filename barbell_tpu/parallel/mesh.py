@@ -1,11 +1,12 @@
-"""Multi-chip execution: 1-D data mesh over reads.
+"""Multi-card execution: 1-D data mesh over reads.
 
 Demultiplexing is embarrassingly parallel per read, so the sharding
-story is a single ``reads`` mesh axis: read-chunk rows are sharded
-across chips, the query tensors (flank + barcode patterns) are
-replicated, and the only collectives are ``psum`` reductions for
-progress counters / per-barcode histograms (tiny, ICI-friendly).
-Everything here is single-controller `jax.sharding` + `shard_map`;
+story is a single ``reads`` mesh axis over the local devices in their
+listed order (the cards of one host are joined all to all, so no device
+order is better than another): read-chunk rows are sharded across
+cards, the query tensors (flank + barcode patterns) are replicated, and
+the only collectives are ``psum`` reductions of hit counters (tiny).
+Everything here is single-controller `jax.sharding` + `jax.shard_map`;
 multi-host runs additionally shard input *files* per host.
 """
 
@@ -24,21 +25,12 @@ READS_AXIS = "reads"
 
 
 def _shard_map(fn, mesh, in_specs, out_specs):
-    try:
-        from jax import shard_map  # jax >= 0.8
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map  # type: ignore
-
-    # Replication/varying-mesh-axes checking must be off: pallas_call
-    # inside shard_map cannot express vma types.  The kwarg was renamed
-    # check_rep -> check_vma across jax versions.
-    for kw in ({"check_vma": False}, {"check_rep": False}, {}):
-        try:
-            return shard_map(fn, mesh=mesh, in_specs=in_specs,
-                             out_specs=out_specs, **kw)
-        except TypeError:
-            continue
-    raise RuntimeError("no compatible shard_map signature")
+    # Varying-mesh-axes checking is off: the Triton pallas_calls inside
+    # the step do not carry vma types.
+    return jax.shard_map(
+        fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+        check_vma=False,
+    )
 
 
 def make_mesh(devices: Optional[Sequence] = None) -> Mesh:
@@ -97,7 +89,7 @@ def sharded_demux_step(mesh: Mesh, **statics):
     rows; the only collective is a ``psum`` of the per-shard hit
     counters.  ``statics`` are demux_call's static kwargs (K, m,
     k_units, W_words, top_bit, Wf, plen, Wb, P, H_cap, padding,
-    use_pallas, interpret, pack_mode, L_rows) — H_cap is the per-shard
+    kernels, pack_mode, L_rows) — H_cap is the per-shard
     lane capacity.  ``host_packed`` is the row matrix for pack modes
     0/1 and the flat concatenated byte buffer (equal length per shard)
     for pack mode 2.
@@ -140,9 +132,8 @@ def sharded_demux_step_fused(mesh: Mesh, *, spans, group_statics, common):
     per-shard mono blobs — the multi-chip form of
     :func:`barbell_tpu.ops.composite.demux_call_fused`.  Multi-group
     kits (NBD front+rear custom runs, ``--use-extended``) otherwise pay
-    a dispatch + fetch round trip per group per batch on every chip —
-    exactly the per-call overhead the single-chip fused call was built
-    to kill (VERDICT r03 weak #3).  ``group_statics``/``common`` follow
+    a dispatch + fetch round trip per group per batch on every card —
+    the per-call overhead the single-card fused call removes.  ``group_statics``/``common`` follow
     demux_call_fused; each shard's output is the plan-order
     concatenation of its groups' packed buffers."""
     from ..ops import composite as comp
@@ -180,8 +171,8 @@ def sharded_demux_step_fused(mesh: Mesh, *, spans, group_statics, common):
 def sharded_demux_step_mono(mesh: Mesh, *, spans, **statics):
     """:func:`sharded_demux_step` with each shard's five host arrays
     riding one row of a ``[n_devices, blob_len]`` uint8 upload — the
-    multi-chip form of :func:`barbell_tpu.ops.composite.demux_call_mono`
-    (one wire transfer per batch instead of five).  ``spans`` is the
+    multi-card form of :func:`barbell_tpu.ops.composite.demux_call_mono`
+    (one transfer per batch instead of five).  ``spans`` is the
     shared blob layout; it is identical across shards because every
     shard pads its segments to the same global shapes."""
     from ..ops import composite as comp

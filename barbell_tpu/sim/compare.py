@@ -292,10 +292,8 @@ def run_compare(
     ]
     reports = []
     if time_runs and groups:
-        # One untimed warm-up run absorbs the per-process first-execution
-        # cost (executable load: minutes on the remote backend —
-        # CLAUDE.md "never benchmark anything that includes it") using
-        # the same shapes as the first timed group.
+        # One untimed warm-up run absorbs the per-process compile cost
+        # using the same shapes as the first timed group.
         warm = os.path.join(work_dir, "_warmup")
         demux_using_kit(
             [os.path.join(sim_dir, f"{groups[0]}.fastq")],

@@ -1,8 +1,9 @@
 """Annotate stage: stream FASTQ reads through a demux engine to TSV.
 
-Engine selection: ``backend='jax'`` uses the batched device pipeline
-(TPU, or CPU-XLA in tests); ``backend='oracle'`` uses the scalar NumPy
-engine; ``'auto'`` prefers the device pipeline.  Each read's rows stay
+Engine selection: ``backend='jax'`` (and the default ``'auto'``) uses
+the batched device pipeline — GPU kernels on a GPU, the jnp twins on
+the CPU in tests — and raises if it cannot start; ``backend='oracle'``
+uses the scalar NumPy engine.  Each read's rows stay
 contiguous in the output — filter/inspect group by consecutive
 ``read_id`` (reference `src/annotate/annotator.rs:103-119`).
 """
@@ -77,13 +78,7 @@ def _jax_engine(groups: Sequence[BarcodeGroup], config: AnnotateConfig):
 
 def _make_engine(groups: Sequence[BarcodeGroup], config: AnnotateConfig):
     backend = config.backend
-    if backend == "auto":
-        try:
-            return _jax_engine(groups, config)
-        except Exception as exc:  # pragma: no cover - fallback path
-            print(f"Device pipeline unavailable ({exc}); falling back to oracle engine")
-            backend = "oracle"
-    if backend == "jax":
+    if backend in ("auto", "jax"):
         return _jax_engine(groups, config)
     if backend == "oracle":
         return _OracleEngine(groups, config)

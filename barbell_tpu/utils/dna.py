@@ -5,7 +5,7 @@ Design: every base maps to a 4-bit membership mask over {A, C, G, T}
 this reproduces the IUPAC semantics of the reference's search profile
 (flank masks use ``N`` = matches anything; degenerate codes match their
 sets; see reference `src/annotate/barcodes.rs:394-441` for the
-complement table it relies on).  The mask form is what the TPU kernels
+complement table it relies on).  The mask form is what the device kernels
 consume: match(p, t) = (mask[p] & mask[t]) != 0 is a single vectorized
 AND+compare over u8 lanes, and reverse-complementing a mask is a pure
 bit permutation (A<->T, C<->G = reversing the nibble's bit order).

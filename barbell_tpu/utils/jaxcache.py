@@ -1,11 +1,14 @@
 """Persistent XLA compilation cache setup.
 
-Remote-TPU compiles take 30-160s per process; the persistent cache cuts
-a cold CLI run's first batch to a few seconds of deserialization.  The
-cache is keyed by HLO, so it is safe across processes and sessions.
+A cold engine compiles its fused step for every batch shape; the
+persistent cache turns a later process's compiles into loads.  The
+cache is keyed by the lowered program, so it is safe across processes.
 
-Disable with ``BARBELL_JAX_CACHE=0``; an explicit
-``JAX_COMPILATION_CACHE_DIR`` wins over the default location.
+Where the cache lives: ``JAX_COMPILATION_CACHE_DIR`` when it is set (JAX
+reads it itself, and nothing here overrides it); otherwise the fixed
+directory ``.jax_cache/`` at the root of the checkout (listed in
+``.gitignore``).  A fixed path is part of the point: a directory that
+moves between runs never hits.  ``BARBELL_JAX_CACHE=0`` disables it.
 """
 
 from __future__ import annotations
@@ -13,6 +16,12 @@ from __future__ import annotations
 import os
 
 _DONE = False
+
+#: the in-checkout default cache directory
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
 
 def enable_compilation_cache() -> None:
@@ -22,30 +31,19 @@ def enable_compilation_cache() -> None:
     _DONE = True
     if os.environ.get("BARBELL_JAX_CACHE", "1") in ("", "0"):
         return
-    try:
-        import jax
-    except Exception:  # pragma: no cover - jax-less oracle use
-        return
+    import jax
+
     if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-        return  # user already configured it via env
-    path = os.path.join(
-        os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")),
-        "barbell_tpu",
-        "jax",
-    )
-    try:
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-        # The cache key hashes the lowered module INCLUDING the MLIR
-        # location tracebacks, which embed the CALLER's file:line — so
-        # any new entry script (or an edit shifting line numbers in the
-        # call chain) silently forced a full remote recompile
-        # (~5-6 min) despite a warm cache.  Dropping tracebacks from
-        # locations makes the key depend only on the computation.
-        # Set BARBELL_JAX_DEBUG_LOCS=1 to keep full locations when
-        # debugging compiler errors.
-        if os.environ.get("BARBELL_JAX_DEBUG_LOCS", "") in ("", "0"):
-            jax.config.update("jax_include_full_tracebacks_in_locations", False)
-    except Exception:
-        pass  # cache is an optimization, never a requirement
+        return  # JAX already reads it; set nothing else
+    os.makedirs(CACHE_DIR, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    # The cache key hashes the lowered module INCLUDING the MLIR
+    # location tracebacks, which embed the CALLER's file:line — so any
+    # new entry script (or an edit shifting line numbers in the call
+    # chain) would miss a warm cache.  Dropping tracebacks from
+    # locations makes the key depend only on the computation.  Set
+    # BARBELL_JAX_DEBUG_LOCS=1 to keep full locations when debugging
+    # compiler errors.
+    if os.environ.get("BARBELL_JAX_DEBUG_LOCS", "") in ("", "0"):
+        jax.config.update("jax_include_full_tracebacks_in_locations", False)

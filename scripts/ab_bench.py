@@ -1,11 +1,11 @@
-"""Interleaved A/B throughput comparison on the real TPU.
+"""Interleaved A/B throughput comparison on the GPU.
 
-The shared chip's throughput drifts by the hour, so sequential
-whole-config runs (one config, then the other) confound config with
-time-of-day.  This harness builds BOTH engine variants in one process,
-warms each once (their executable loads are the per-process cold-start
-cost), then runs A and B alternately on the SAME fresh dataset per
-repetition — a paired comparison that cancels drift.
+Sequential whole-config runs (one config, then the other) confound
+config with drift (clocks, power limit, host load).  This harness
+builds BOTH engine variants in one process, warms each once (their
+compiles are the per-process cold-start cost), then runs A and B
+alternately on the SAME fresh dataset per repetition — a paired
+comparison that cancels drift.
 
 Modes (env AB_MODE):
   mono       mono blob upload (default ON) vs per-array uploads
@@ -13,15 +13,16 @@ Modes (env AB_MODE):
   batch      AB_BATCH vs AB_BATCH_B (default 4096) on one engine —
              fewer RPCs per read vs more padding + shallower pipeline
   depth      pipeline depth 4 vs AB_DEPTH_B (default 8) on one engine —
-             more in-flight fetches hide tunnel latency vs more host
+             more in-flight batches hide device latency vs more host
              memory + GIL contention
 
 Env: AB_READS (default 16384), AB_BATCH (2048), AB_REPEAT (3 paired
-passes), BENCH_DEVICE_TIMEOUT.  Output: one JSON line with both arms'
-per-pass times, medians, and the B/A ratio; progress on stderr.
+passes).  Output: one JSON line with both arms' per-pass times,
+medians, the B/A ratio and the device; progress on stderr.  Exits
+non-zero without a GPU.
 
-Run SOLO — nothing else may touch the chip or the host while this runs
-(CLAUDE.md measurement discipline).
+Run SOLO — nothing else may touch the card or the host while this
+runs.
 """
 
 import json
@@ -202,15 +203,12 @@ def run_pass(engine, reads, batch, depth=None):
 def main():
     import bench  # repo root is on sys.path (inserted above)
 
-    bench._probe_backend(
-        float(os.environ.get("BENCH_DEVICE_TIMEOUT", "180")),
-        float(os.environ.get("BENCH_MAX_WAIT", "1800")),
-    )
+    device = bench.gpu_device()
     from bench import make_reads_rbk
 
     arm_a, arm_b = build_engines()
     name_a, name_b = arm_a[1], arm_b[1]
-    log(f"mode={MODE}: A={name_a} B={name_b}; warming (cold loads)")
+    log(f"mode={MODE}: A={name_a} B={name_b}; warming (compiles)")
     warm = make_reads_rbk(N_READS, seed=99)
     for eng, nm, bsz, dp in (arm_a, arm_b):
         t0 = time.perf_counter()
@@ -244,6 +242,7 @@ def main():
                 "reads_per_sec_a": round(n / med_a, 1),
                 "reads_per_sec_b": round(n / med_b, 1),
                 "b_over_a_speedup": round(med_a / med_b, 4),
+                **device,
             }
         ),
         flush=True,

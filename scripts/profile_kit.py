@@ -1,15 +1,12 @@
-"""Host-side profile of the streamed kit runner on the real chip.
+"""Host-side profile of the streamed kit runner on the GPU.
 
-The round-3 finding (VERDICT r03 weak #2): the full kit pipeline runs
-at ~1/3 of annotate-only throughput — host inspect/filter/trim +
-output writing eat the pipelined idle time on the 1-core bench host.
-This script cProfiles ONE end-to-end `demux_using_kit` run (streamed)
-on bench-shaped NBD reads and prints the top cumulative functions, so
-the object churn can be ranked before optimizing (measure, don't
-guess).
+The kit pipeline adds host inspect/filter/trim + output writing to the
+annotate hot loop.  This script cProfiles ONE end-to-end
+`demux_using_kit` run (streamed) on bench-shaped NBD reads and prints
+the top cumulative functions, so the host work can be ranked before
+optimizing (measure, don't guess).
 
-Per CLAUDE.md: run solo on the chip; the first demux_call execution is
-a multi-minute executable load — a warmup engine absorbs it before the
+Run solo on the card; a warmup engine absorbs the compiles before the
 profiled run.  BARBELL_TIMING=1 adds the engine phase report.
 
 Usage: python scripts/profile_kit.py [n_reads] [out_dir]
@@ -34,10 +31,7 @@ def main():
     )
     batch = int(os.environ.get("BENCH_BATCH", "2048"))
 
-    bench._probe_backend(
-        float(os.environ.get("BENCH_DEVICE_TIMEOUT", "180")),
-        float(os.environ.get("BENCH_MAX_WAIT", "1800")),
-    )
+    bench.gpu_device()
 
     from barbell_tpu.models.barcodes import BarcodeGroup
     from barbell_tpu.models.twotier import make_ends_engine
@@ -46,7 +40,7 @@ def main():
 
     reads = bench.make_reads_nbd(n_reads, seed=11)
 
-    # absorb the per-process executable load with the SAME engine
+    # absorb the per-process compiles with the SAME engine
     # config the kit runner will build (the maximize two-tier plan)
     wgroups = BarcodeGroup.from_kit("SQK-NBD114-96", False)
     for g in wgroups:
@@ -64,7 +58,7 @@ def main():
     if hasattr(weng, "warm_deep"):
         weng.warm_deep()
     print(
-        f"# warmup (cold load): {time.perf_counter() - t0:.1f}s, plan={plan}",
+        f"# warmup (compile): {time.perf_counter() - t0:.1f}s, plan={plan}",
         file=sys.stderr,
     )
     del weng

@@ -1,12 +1,11 @@
-"""Per-phase host profile of the annotate hot loop on the real chip.
+"""Per-phase host profile of the annotate hot loop on the GPU.
 
 Runs the bench.py read generators through engine_map_batches with
 BARBELL_TIMING=1 and prints the phase report plus wall clock, so the
 GIL-bound host phases can be ranked against the pipelined wall time.
 Usage: BARBELL_TIMING=1 python scripts/profile_phases.py [rbk114_96|nbd114_96]
 
-Per CLAUDE.md: run solo on the chip; the first demux_call execution is
-a multi-minute executable load — one warmup batch absorbs it before the
+Run solo on the card; one warmup batch absorbs the compiles before the
 timed passes.
 """
 

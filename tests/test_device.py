@@ -18,6 +18,7 @@ from barbell_tpu.models.records import Strand  # noqa: E402
 from barbell_tpu.ops import device as dev  # noqa: E402
 from barbell_tpu.ops import oracle  # noqa: E402
 from barbell_tpu.ops.edit_model import get_edit_cut_off  # noqa: E402
+from barbell_tpu.ops.kernels import INTERPRET  # noqa: E402
 from barbell_tpu.ops.lodhi import lodhi_from_ops  # noqa: E402
 from barbell_tpu.utils import dna  # noqa: E402
 
@@ -355,8 +356,9 @@ def test_engine_matches_oracle_chunked_long_reads():
 
 @pytest.mark.slow
 def test_engine_pallas_path_matches_oracle():
-    """The Pallas flank-scan path (interpret mode on CPU) must agree with
-    the scalar engine on short synthetic reads."""
+    """The Triton kernel path (Myers flank scan + rank, in the Pallas
+    interpreter on CPU) must agree with the scalar engine on short
+    synthetic reads."""
     rng = random.Random(11)
     groups = BarcodeGroup.from_kit("SQK-RBK110-96")
     for g in groups:
@@ -367,8 +369,8 @@ def test_engine_pallas_path_matches_oracle():
     scalar = Demuxer(alpha=0.4)
     for g in groups:
         scalar.add_query_group(g)
-    engine = JaxDemuxEngine(groups, alpha=0.4, use_pallas=True,
-                        devices=jax.devices()[:1])
+    engine = JaxDemuxEngine(groups, alpha=0.4, kernels=INTERPRET,
+                            devices=jax.devices()[:1])
 
     reads = []
     for i in range(6):
@@ -544,7 +546,7 @@ def test_composites_match_reference_impls():
 def test_engine_pallas_split_rank_matches_oracle():
     """A batch big enough that H_cap hits the strand-split rank layout
     (H_cap % 256 == 0) must still be row-identical to the scalar
-    engine (pallas interpret mode on CPU)."""
+    engine (Triton kernels in the Pallas interpreter on CPU)."""
     rng = random.Random(13)
     groups = BarcodeGroup.from_kit("SQK-RBK110-96")
     for g in groups:
@@ -555,8 +557,8 @@ def test_engine_pallas_split_rank_matches_oracle():
     scalar = Demuxer(alpha=0.4)
     for g in groups:
         scalar.add_query_group(g)
-    engine = JaxDemuxEngine(groups, alpha=0.4, use_pallas=True,
-                        devices=jax.devices()[:1])
+    engine = JaxDemuxEngine(groups, alpha=0.4, kernels=INTERPRET,
+                            devices=jax.devices()[:1])
 
     reads = []
     for i in range(80):  # R_total_pad = 128 + 128 -> split-eligible
@@ -740,6 +742,30 @@ def test_mantissa_bucket_properties():
             e = (x - 1).bit_length() - 4
             if e > 0:
                 assert b % (1 << e) == 0  # alignment (t_pad needs %128)
+
+
+@pytest.mark.parametrize(
+    "profile,want",
+    [
+        ("600-4000", 4096),  # every read whole: fewest padded rows
+        ("600-4000+long", 4096),  # 9-21 kb reads chunk at 4096
+        ("300-1000", 1024),
+        # one 4.2 kb read: chunking it at 1024 pushes the pow2 row bucket
+        # from 2048 to 4096 host rows, and the rank's per-row cost
+        # outweighs the wider rows' flank cells
+        ("300-1000+one", 8192),
+    ],
+)
+def test_choose_L_weighs_rank_lanes_over_row_width(profile, want):
+    _, engine = _engine_pair()
+    rng = np.random.default_rng(0)
+    short = profile.startswith("300")
+    lens = rng.integers(300, 1000, 2048) if short else rng.integers(700, 4088, 2048)
+    if profile.endswith("+long"):
+        lens[:8] = rng.integers(9000, 21000, 8)
+    if profile.endswith("+one"):
+        lens[0] = 4200
+    assert engine._choose_L(lens) == want
 
 
 def test_engine_fine_row_buckets_row_identical():

@@ -21,6 +21,7 @@ from barbell_tpu.models import hittable
 from barbell_tpu.models.barcodes import BarcodeGroup
 from barbell_tpu.models.pipeline import JaxDemuxEngine
 from barbell_tpu.ops.edit_model import get_edit_cut_off
+from barbell_tpu.ops.kernels import INTERPRET, XLA
 from barbell_tpu.sim.simulate import (
     default_barcodes,
     mutate_sequence,
@@ -95,13 +96,16 @@ def _cpu1():
     return jax.devices()[:1]
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_ends_matches_full_scan_rbk(use_pallas):
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_ends_matches_full_scan_rbk(use_kernels):
+    """Ends rows == full scan, on the jnp twins and on the Triton
+    kernels (Pallas interpreter)."""
+    kernels = INTERPRET if use_kernels else XLA
     groups = _groups()
     ids, seqs = _rbk_reads(20, seed=1)
-    full = JaxDemuxEngine(groups, devices=_cpu1(), use_pallas=use_pallas)
+    full = JaxDemuxEngine(groups, devices=_cpu1(), kernels=kernels)
     ends = JaxDemuxEngine(
-        groups, devices=_cpu1(), use_pallas=use_pallas, ends_window=1024
+        groups, devices=_cpu1(), kernels=kernels, ends_window=1024
     )
     tf = full.demux_batch_table(ids, seqs)
     te = ends.demux_batch_table(ids, seqs)
@@ -264,16 +268,17 @@ def test_ends_overlapping_pair_full_coverage():
     assert tf.n_rows >= len(ids) // 2
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_ends_asymmetric_matches_full_scan(use_pallas):
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_ends_asymmetric_matches_full_scan(use_kernels):
     """Per-side windows (W_l != W_r): end-construct reads are
     row-identical to the full scan (round-5 wire cut — only the left
     side needs the `@prev_left` chain depth)."""
+    kernels = INTERPRET if use_kernels else XLA
     groups = _groups()
     ids, seqs = _rbk_reads(20, seed=21)
-    full = JaxDemuxEngine(groups, devices=_cpu1(), use_pallas=use_pallas)
+    full = JaxDemuxEngine(groups, devices=_cpu1(), kernels=kernels)
     ends = JaxDemuxEngine(
-        groups, devices=_cpu1(), use_pallas=use_pallas,
+        groups, devices=_cpu1(), kernels=kernels,
         ends_window=(1024, 512),
     )
     _assert_tables_equal(

@@ -122,9 +122,7 @@ def engine():
         g.set_flank_threshold(get_edit_cut_off(g.get_effective_len()))
     import jax
 
-    return JaxDemuxEngine(
-        groups, use_pallas=False, devices=jax.devices()[:1]
-    )
+    return JaxDemuxEngine(groups, devices=jax.devices()[:1])
 
 
 def _nbd_reads(n, seed=0):

@@ -3,6 +3,8 @@
 import numpy as np
 import pytest
 
+from barbell_tpu.ops.kernels import INTERPRET
+
 jax = pytest.importorskip("jax")
 
 
@@ -122,7 +124,7 @@ def test_sharded_demux_step_matches_single_device():
         K=8, m=plan.m, k_units=plan.k_units, W_words=plan.W_words,
         top_bit=plan.top_bit, Wf=plan.span, plen=plan.plen,
         Wb=plan.barcode_window, P=plan.n_patterns, H_cap=R_pad + S_pad,
-        padding=PADDING, use_pallas=False, interpret=False,
+        padding=PADDING,
     )
 
     mesh = make_mesh()
@@ -252,10 +254,10 @@ def test_engine_sharded_nibble_fallback_matches():
 
 
 def test_engine_sharded_pallas_matches_single_device():
-    """Mesh + pallas (interpret on CPU): the sharded engine must stay
-    row-identical with the Pallas kernel path enabled — the production
-    configuration of a multi-chip TPU host.  Tiny shapes: interpret
-    kernels run per shard."""
+    """Mesh + Triton kernels (Pallas interpreter on CPU): the sharded
+    engine must stay row-identical with the kernel path enabled — the
+    production configuration of a multi-GPU host.  Tiny shapes:
+    interpreted kernels run per shard."""
     from barbell_tpu.models.barcodes import BarcodeGroup
     from barbell_tpu.models.pipeline import JaxDemuxEngine
     from barbell_tpu.ops.edit_model import get_edit_cut_off
@@ -272,9 +274,10 @@ def test_engine_sharded_pallas_matches_single_device():
     ids, seqs = _mk_reads(4, 8, seed=31)
     seqs = [s[:300] for s in seqs]
 
-    e8 = JaxDemuxEngine(groups(), max_row_len=512, use_pallas=True)
+    e8 = JaxDemuxEngine(groups(), max_row_len=512, kernels=INTERPRET)
     e1 = JaxDemuxEngine(
-        groups(), max_row_len=512, use_pallas=True, devices=jax.devices()[:1]
+        groups(), max_row_len=512, kernels=INTERPRET,
+        devices=jax.devices()[:1],
     )
     out8 = e8.demux_batch(ids, seqs)
     assert e8.last_dispatch == "sharded"
